@@ -30,10 +30,9 @@ MODULES = [
     "subpixal_tpu.ops.fit",
     "subpixal_tpu.ops.interp",
     "subpixal_tpu.ops.drizzle",
-    "subpixal_tpu.kernels",
-    "subpixal_tpu.kernels.blot",
-    "subpixal_tpu.kernels.drizzle",
-    "subpixal_tpu.kernels.measure",
+    "subpixal_tpu.ops.blocks",
+    "subpixal_tpu.backend",
+    "subpixal_tpu.aot",
     "subpixal_tpu.parallel.sharding",
     "subpixal_tpu.parallel.spatial",
     "subpixal_tpu.parallel.distributed",

@@ -1,6 +1,6 @@
 """End-to-end subpixal_tpu demo: simulate, align, inspect.
 
-Runs on CPU or TPU (auto-detected). Three parts:
+Runs on CPU or GPU (auto-detected). Three parts:
 
 1. array-level alignment of a synthetic dithered stack with planted
    sub-pixel WCS errors (`align_images(exposures=...)`);

@@ -4,13 +4,13 @@ science/weight planes are row-band-sharded over a device mesh.
 The frame/cutout mesh (`align_demo.py --mesh`) scales throughput; this
 demo shows the MEMORY axis (`parallel/spatial.py`, SURVEY §5 "very
 large mosaics"): per device only H/N mosaic rows are resident, so a
-mosaic bounded by one chip's HBM spreads across the slice. Everything
+mosaic bounded by one card's memory spreads across the cards. Everything
 here also runs on the 8-device virtual CPU mesh::
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/mosaic_spatial.py
 
-On a real multi-chip slice the same code shards over ICI neighbors.
+On a host with several GPUs the same code shards over its cards.
 """
 
 import os
@@ -98,7 +98,7 @@ def main():
     print(f"gathered product: {sci.shape}, peak {sci.max():.2f}")
     # sanity vs an unsharded build
     ref = Drizzle([e.copy() for e in exps[:1]] + [moved.copy()]
-                  + [e.copy() for e in exps[2:]], use_pallas=False)
+                  + [e.copy() for e in exps[2:]])
     ref.execute()
     print(f"max |sharded - unsharded| = "
           f"{np.abs(sci - ref.output_sci).max():.2e}")

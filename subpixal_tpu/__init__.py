@@ -1,11 +1,11 @@
-"""subpixal_tpu — TPU-native subpixel cross-correlation image alignment.
+"""subpixal_tpu — subpixel cross-correlation image alignment on device.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``spacetelescope/subpixal`` (see SURVEY.md): catalog-driven cutout
 extraction, batched FFT cross-correlation with Fourier-domain upsampling,
 subpixel peak fitting, sigma-clipped linear WCS-correction fits, and
 blot/drizzle resampling — all batched, jit-compiled, and shardable over
-TPU device meshes. Host-side FITS/WCS I/O and catalog bookkeeping are
+device meshes. Host-side FITS/WCS I/O and catalog bookkeeping are
 self-contained (no astropy dependency).
 
 Module map (reference module -> here):
@@ -19,8 +19,9 @@ Module map (reference module -> here):
   subpixal.utils     -> subpixal_tpu.utils        (parse_file_name)
   (astropy.io.fits)  -> subpixal_tpu.io.fits      (pure-numpy FITS)
   (astropy.wcs)      -> subpixal_tpu.wcs          (TanWCS, TAN+SIP)
-  (new, TPU)         -> subpixal_tpu.ops          (device kernels)
-  (new, TPU)         -> subpixal_tpu.parallel     (mesh/shard_map/collectives)
+  (new)              -> subpixal_tpu.ops          (device ops)
+  (new)              -> subpixal_tpu.backend      (the backend decision)
+  (new)              -> subpixal_tpu.parallel     (mesh/shard_map/collectives)
 """
 
 from .version import __version__

@@ -7,7 +7,7 @@ wraps existing SExtractor output (``SExCatalog``), and one that *produces*
 a catalog from an image (``SExImageCatalog`` — reference: runs the ``sex``
 binary via subprocess).
 
-TPU-first redesign: the default detector is :class:`ImageSourceCatalog`,
+Device-first redesign: the default detector is :class:`ImageSourceCatalog`,
 a self-contained source finder replacing the external SExtractor binary —
 sigma-clipped background stats, thresholding, native C++
 connected-component labeling (``subpixal_tpu._native``; irregular
@@ -340,7 +340,7 @@ class ImageCatalog:
 class ImageSourceCatalog(ImageCatalog):
     """Catalog produced by the built-in (native + JAX) source finder.
 
-    The TPU build's default replacement for running SExtractor
+    This build's default replacement for running SExtractor
     (SURVEY §2a). ``image`` may be a numpy array or a FITS path (with
     optional ``[ext]`` spec, reference-style).
     """
@@ -446,7 +446,7 @@ class SExImageCatalog(SExCatalog):
     ``subpixal/catalogs.py · SExImageCatalog`` — SURVEY §3.3).
 
     Only usable when a ``sex``/``sextractor`` binary is installed; in this
-    TPU environment :class:`ImageSourceCatalog` is the native default.
+    environment :class:`ImageSourceCatalog` is the native default.
     """
 
     def __init__(self, image: str, sexconfig: str,

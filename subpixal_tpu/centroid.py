@@ -1,7 +1,7 @@
 """Peak centroiding module (reference-familiar name).
 
 The reference exposes its subpixel peak fit as ``subpixal.centroid ·
-find_peak`` (SURVEY.md §2 #5); this module re-exports the TPU-native
+find_peak`` (SURVEY.md §2 #5); this module re-exports the device
 batched implementation from :mod:`subpixal_tpu.ops.peaks`.
 """
 

@@ -1,10 +1,10 @@
 // Native connected-component labeling + per-source moment measurement.
 //
-// TPU-native replacement for the role SExtractor (external C binary) plays
+// Native replacement for the role SExtractor (external C binary) plays
 // in the reference (subpixal/catalogs.py · SExImageCatalog runs `sex` via
 // subprocess — SURVEY.md §2 #6, §2a): segmentation of a thresholded
 // detection image into labeled sources. Labeling is an irregular,
-// pointer-chasing union-find — a poor fit for the TPU's vector units — so
+// pointer-chasing union-find — a poor fit for an accelerator's vector units — so
 // it runs on host in C++ (this file), while all per-source *measurement*
 // (centroids, fluxes, windowed moments over cutouts) is vectorized on
 // device in JAX. Loaded via ctypes (no pybind11 in this image); a

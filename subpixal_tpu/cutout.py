@@ -8,7 +8,7 @@ the segmentation footprint), matched cutouts on each input exposure,
 the reverse mapping (drz-from-input), insertion back into images, and the
 ``NoOverlapError`` / ``PartialOverlapError`` semantics.
 
-TPU-first split: these host objects carry bookkeeping (WCS, ids, units);
+Device-first split: these host objects carry bookkeeping (WCS, ids, units);
 the *pixels* for the hot loop are packed into fixed-shape device batches
 via :func:`cutouts_to_batch` (padded to one static (h, w) with validity
 masks — SURVEY §7 "Fixed shapes under jit") and processed by
@@ -312,7 +312,7 @@ def cutouts_to_batch(
     """Pack host cutouts into one fixed-shape batch for the device ops.
 
     Pads every cutout (centered) to a common static ``shape`` (default:
-    the max h/w over the batch, rounded up to a multiple of 8 for TPU
+    the max h/w over the batch, rounded up to a multiple of 8 for aligned
     tiling). Returns (data (B,h,w) f32, mask (B,h,w) bool, offsets (B,2)
     f32) where ``offsets`` is the (y, x) of each original cutout's (0,0)
     inside the padded frame — needed to convert measured displacements

@@ -2,7 +2,7 @@
 
 The reference leans on ``astropy.io.fits`` for all image/header I/O
 (SURVEY.md §1 "Host I/O"); astropy is not available in this environment,
-and the TPU framework only needs a small, well-defined subset of FITS:
+and this framework only needs a small, well-defined subset of FITS:
 primary + IMAGE-extension HDUs with integer/float pixel data, plus header
 cards (including the WCS keywords the :mod:`subpixal_tpu.wcs` layer
 consumes). This module implements that subset from the FITS standard —

@@ -1,4 +1,4 @@
-"""Fixed-shape cutout extraction/insertion on device — TPU-native.
+"""Fixed-shape cutout extraction/insertion on device.
 
 Device-side counterpart of the reference's ``subpixal/cutout.py`` geometry
 core (SURVEY.md §2 #3, §3.5). The reference creates variable-sized numpy

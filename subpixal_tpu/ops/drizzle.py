@@ -1,4 +1,4 @@
-"""Drizzle (area-weighted scatter-add resampling) — TPU-native.
+"""Drizzle (area-weighted scatter-add resampling), on device.
 
 Device-side equivalent of the reference's image-combination kernel
 (``drizzlepac`` C extension ``cdriz.tdriz``; SURVEY.md §2 #7, §2a): each
@@ -6,12 +6,12 @@ input pixel deposits its flux onto the output grid over a shrunken square
 footprint (``pixfrac``), weighted by fractional area overlap, accumulating
 separate science and weight planes.
 
-TPU-first formulation: the classic drizzle is an input-driven scatter with
+Device-first formulation: the classic drizzle is an input-driven scatter with
 data-dependent footprints — hostile to SIMD. Here the footprint is bounded
 by a **static** KxK candidate-cell window (K derived from pixfrac/scale at
 trace time), so the whole operation becomes K² fully vectorized
 area-overlap computations + flat ``scatter-add``s, which XLA lowers
-efficiently on TPU. This matches drizzlepac's 'turbo'/'square' kernel
+efficiently (atomics on the GPU). This matches drizzlepac's 'turbo'/'square' kernel
 semantics for the locally-axis-aligned case (the 'square' kernel with a
 rotated Jacobian differs at the few-1e-3 level per pixel; the align loop's
 difference images are insensitive to this).

@@ -1,4 +1,4 @@
-"""Sigma-clipped linear (WCS-correction) fits — TPU-native.
+"""Sigma-clipped linear (WCS-correction) fits, on device.
 
 Capability parity with the reference's fitting layer
 (``subpixal/align.py · find_linear_fit`` — iterative sigma-clipped LSQ fit
@@ -8,12 +8,12 @@ fit ``uv ≈ M @ xy + t`` with ``fitgeom`` in ``{'shift','rscale','general'}``
 and iteratively reject outliers beyond ``sigma`` times the fit RMS,
 ``nclip`` times.
 
-TPU-first redesign: the clip loop is a fixed-trip loop over boolean
+Device-first redesign: the clip loop is a fixed-trip loop over boolean
 weights (fixed shapes — the reference's data-dependent point removal
 becomes weight zeroing, SURVEY §7), and the whole fit is expressed through
 **weighted moment sums** so the identical code runs single-device or
 sharded: under ``shard_map`` the moment sums are simply ``lax.psum``-ed
-over the device mesh (SURVEY §2b "Collectives" — the TPU-native answer to
+over the device mesh (SURVEY §2b "Collectives" — the device answer to
 a distributed least-squares), giving a bit-identical distributed fit.
 
 Closed forms (with weighted centroids removed; X = xy - <xy>, U = uv - <uv>):

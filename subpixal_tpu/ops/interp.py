@@ -1,4 +1,4 @@
-"""Separable image interpolation (the blot gather) — TPU-native.
+"""Separable image interpolation (the blot gather), on device.
 
 Device-side sampling of an image at arbitrary (x, y) coordinates, the core
 of the blot operation (reference: ``drizzlepac.ablot.do_blot`` → C
@@ -14,8 +14,8 @@ gathers**:
 * ``sinc`` — Lanczos-3 windowed sinc, 6x6 taps;
 * ``spline3`` — TRUE cubic B-spline: the classic IIR prefilter (Unser
   1993) runs as two `lax.associative_scan` linear recurrences per axis
-  — the recursion is a composition monoid, so it maps onto the TPU as
-  a log-depth scan instead of the sequential loop the reference's C
+  — the recursion is a composition monoid, so it maps onto the device
+  as a log-depth scan instead of the sequential loop the reference's C
   uses — then sampling is the ordinary 4x4 separable gather with
   B-spline basis weights on the coefficient image.
 
@@ -34,8 +34,8 @@ __all__ = ["sample_image", "bspline3_prefilter", "INTERP_TAPS",
            "INTERP_OFFSETS"]
 
 #: integer tap offsets of each separable interpolant (consecutive); the
-#: single source of truth shared with the Pallas kernel in
-#: :mod:`subpixal_tpu.kernels.blot`
+#: single source of truth shared with the row-sharded gather in
+#: :mod:`subpixal_tpu.parallel.spatial`
 INTERP_OFFSETS = {
     "nearest": (0,),
     "linear": (0, 1),
@@ -99,7 +99,9 @@ def _bspline3_prefilter_axis(x: jax.Array, axis: int) -> jax.Array:
     x = x * 6.0
     K = min(N, _BSPLINE3_HORIZON)
     zk = z ** jnp.arange(K, dtype=x.dtype)
-    c0 = jnp.einsum("...k,k->...", x[..., :K], zk)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on the GPU
+    c0 = jnp.einsum("...k,k->...", x[..., :K], zk,
+                    precision=jax.lax.Precision.HIGHEST)
 
     def comb(l, r):
         al, bl = l

@@ -1,14 +1,14 @@
-"""Subpixel peak localization on (correlation) surfaces — TPU-native.
+"""Subpixel peak localization on (correlation) surfaces, on device.
 
 Capability parity with the reference's ``subpixal/centroid.py · find_peak``
 (quadratic-surface subpixel peak fit with argmax fallback), redesigned for
-TPU/XLA:
+XLA:
 
 * fully **batched** over a leading axis — one call fits every cutout's
   correlation peak at once;
 * the fit box has a **static size**, so the quadratic design matrix is a
   compile-time constant and the unweighted solve reduces to a single
-  ``(k*k, 6)`` pseudo-inverse matmul (MXU-friendly);
+  ``(k*k, 6)`` pseudo-inverse matmul;
 * masked/weighted fits solve batched 6x6 normal equations with
   Tikhonov-guarded ``jnp.linalg.solve``;
 * the reference's Python fallback logic (degenerate Hessian, peak outside
@@ -95,8 +95,7 @@ def _fit_moments(data, z, w, iy, ix, k):
 
     Replaces explicit box extraction: the old path built per-surface
     one-hot selector matrices and ran them as BATCHED einsums —
-    per-surface matmuls that cost ~40 us per 500x16^2 batch on v5e,
-    ~90 % of ``find_peak``'s runtime. Here the k x k box never
+    per-surface matmuls that dominated ``find_peak``'s runtime. Here the k x k box never
     materializes: the normal equations' entries are masked moments
     ``sum w * x^p * y^q`` over the whole surface, with the box mask and
     the CENTERED coordinate powers folded into per-surface row/column
@@ -160,9 +159,9 @@ def _solve_spd_small(A: jax.Array, b: jax.Array) -> jax.Array:
     """Batched SPD solve for tiny static n via unrolled Cholesky.
 
     ``jnp.linalg.solve`` on (B, 6, 6) lowers to a pivoted batched LU that
-    costs ~0.8 ms for B=500 on TPU; the normal equations here are SPD (+
+    is slow for small batched systems; the normal equations here are SPD (+
     Tikhonov), so an unrolled Cholesky — ~70 elementwise (B,)-vector ops,
-    entirely on the VPU — solves the same systems in ~10 µs.
+    entirely elementwise — solves the same systems far faster.
     """
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
@@ -285,7 +284,7 @@ def find_peak(
     iy = iy.astype(jnp.int32)
     ix = ix.astype(jnp.int32)
     # value at the argmax == max of the (masked) search surface — a plain
-    # reduce, ~5x cheaper than a batched take_along_axis gather on TPU
+    # reduce, ~5x cheaper than a batched take_along_axis gather
     peak_val = jnp.max(search, axis=(1, 2))
 
     # --- weighted quadratic fit via box-centered masked moments ---

@@ -1,10 +1,9 @@
 """Multi-device sharding for the alignment pipeline.
 
 The reference is a serial numpy program (SURVEY.md §2b: no parallelism of
-any kind); these are new, first-class TPU components: the cutout batch is
+any kind); these are new, first-class components: the cutout batch is
 data-parallel over a ``jax.sharding.Mesh``, global sigma-clipped fits run
-via ``lax.psum`` collectives inside ``shard_map`` (ICI within a slice,
-DCN across slices), and the joint multi-exposure alignment step (BASELINE
+via ``lax.psum`` collectives inside ``shard_map``, and the joint multi-exposure alignment step (BASELINE
 config 5) is one jit-compiled SPMD program.
 """
 

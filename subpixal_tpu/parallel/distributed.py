@@ -1,14 +1,14 @@
-"""Multi-host / multi-slice plumbing (SURVEY §2b "DCN across slices",
-§5 "distributed communication backend").
+"""Multi-host plumbing (SURVEY §2b, §5 "distributed communication
+backend").
 
 The reference is a single-process numpy program with no distributed
-runtime of any kind (SURVEY §2b); on TPU pods the TPU-native equivalent
-is jax's distributed runtime: every host calls
+runtime of any kind (SURVEY §2b); across several GPU hosts the
+equivalent is jax's distributed runtime: every host calls
 :func:`jax.distributed.initialize`, after which ``jax.devices()``
 enumerates the GLOBAL device list and the same ``shard_map`` + ``psum``
 programs used single-host (:mod:`subpixal_tpu.parallel.sharding`) run
-across hosts — collectives ride ICI within a slice and DCN across
-slices, inserted by XLA from the sharding annotations.
+across hosts — XLA inserts the collectives (NCCL over NVLink within a
+host, the network between hosts) from the sharding annotations.
 
 This module provides the thin, testable layer around that:
 
@@ -98,8 +98,8 @@ def make_global_mesh(n_devices: int | None = None, axis_name: str = _AXIS):
 
     Multi-host jax requires every process to build the identical mesh
     from ``jax.devices()`` (which is global after
-    :func:`init_distributed`); devices enumerate ICI-first, so psum
-    rings prefer ICI and only cross DCN at slice boundaries.
+    :func:`init_distributed`); devices enumerate host by host, so a
+    psum crosses the network only at host boundaries.
     """
     from .sharding import make_mesh
 

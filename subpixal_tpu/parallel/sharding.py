@@ -39,8 +39,9 @@ AXIS = "cutouts"
 def make_mesh(n_devices: int | None = None, axis_name: str = AXIS) -> Mesh:
     """A 1-D device mesh over the cutout-batch axis.
 
-    ``n_devices=None`` uses all available devices. On multi-chip TPU the
-    devices enumerate along ICI; a 1-D mesh keeps the psum rings on ICI.
+    ``n_devices=None`` uses all available devices. The cards of one
+    host reach each other all to all (NVLink), so a plain 1-D list of
+    devices is the right mesh: the collectives need no topology.
     """
     devs = jax.devices()
     if n_devices is not None:
@@ -191,8 +192,6 @@ def make_sharded_align_step(
     sigma: float = 3.0,
     peak_search_box="fitbox",
     interp: str = "poly5",
-    use_pallas: bool | str = False,
-    blot_tile: tuple[int, int] = (128, 128),
 ):
     """Build the full multi-chip align iteration (BASELINE config 5).
 
@@ -216,9 +215,6 @@ def make_sharded_align_step(
     axis = mesh.axis_names[0]
     E = int(n_frames)
     _HP = jax.lax.Precision.HIGHEST
-    from ..kernels import use_pallas as _use_pallas
-
-    pallas = _use_pallas(use_pallas)
 
     @partial(
         jax.shard_map, mesh=mesh,
@@ -236,16 +232,9 @@ def make_sharded_align_step(
               + Mi[:, 0, 1, None, None] * cut_py + ti[:, 0, None, None])
         by = (Mi[:, 1, 0, None, None] * cut_px
               + Mi[:, 1, 1, None, None] * cut_py + ti[:, 1, None, None])
-        if pallas:
-            # per-device MXU blot kernel on the local cutout shard
-            from ..kernels.blot import sample_cutouts_pallas
-
-            blotted, ok = sample_cutouts_pallas(
-                drz, bx, by, interp=interp, tile=blot_tile)
-        else:
-            blotted, ok = jax.vmap(
-                lambda x, y: sample_image(drz, x, y, interp=interp)
-            )(bx, by)
+        blotted, ok = jax.vmap(
+            lambda x, y: sample_image(drz, x, y, interp=interp)
+        )(bx, by)
         m = msk & ok
         d = find_displacement(
             blotted, img, cc_type=cc_type, usfac=usfac,

@@ -3,9 +3,9 @@
 The frame/cutout axes (``parallel.sharding``) scale THROUGHPUT; this
 module scales MOSAIC SIZE — the SURVEY §5 "long-context" axis ("for very
 large mosaics, shard full image planes spatially with halo exchange").
-A v5e chip holds ~16 GB: a 32k×32k float32 drizzle product (sci + wht
-accumulators = 8 GB) plus working set does not fit, but its row bands
-across 8 chips (1 GB/chip) do.
+A 64k×64k float32 drizzle product (sci + wht accumulators = 32 GB)
+plus its working set crowds one 80 GB card; its row bands across 4
+cards (8 GB each) fit with room to spare.
 
 Design — exactness over cleverness:
 
@@ -163,9 +163,6 @@ def drizzle_deposit_spatial(
     pixfrac: float = 1.0,
     pscale_ratio: float = 1.0,
     kernel: str = "square",
-    use_pallas: bool = False,
-    tile: tuple[int, int] | None = None,
-    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """:func:`subpixal_tpu.ops.drizzle.drizzle_deposit` with the OUTPUT
     accumulators row-band-sharded over ``mesh``.
@@ -178,20 +175,10 @@ def drizzle_deposit_spatial(
     ``(sci, wht)`` are sharded ``(ceil(Ho/N)*N, Wo)`` arrays; combine
     elementwise (``drizzle_combine`` under jit keeps the sharding) and
     crop with :func:`gather_rows`.
-
-    ``use_pallas=True`` runs the band deposit as the MXU matmul kernel
-    (:func:`subpixal_tpu.kernels.drizzle.drizzle_deposit_pallas`) —
-    Mosaic-inside-shard_map, probed working on v5e 2026-08-19 (parity
-    4e-6 vs the XLA band deposit). TPU only (``interpret=True`` for CPU
-    parity tests); ``tophat`` (non-separable) falls back to XLA.
     """
     fn = _deposit_spatial_jit(mesh, (int(out_shape[0]), int(out_shape[1])),
                               float(pixfrac), float(pscale_ratio), kernel,
-                              in_wht is None,
-                              bool(use_pallas) and kernel != "tophat",
-                              None if tile is None
-                              else (int(tile[0]), int(tile[1])),
-                              bool(interpret))
+                              in_wht is None)
     return fn(jnp.asarray(in_data, jnp.float32),
               None if in_wht is None else jnp.asarray(in_wht, jnp.float32),
               jnp.asarray(x_out, jnp.float32),
@@ -200,14 +187,12 @@ def drizzle_deposit_spatial(
 
 @functools.lru_cache(maxsize=64)
 def _deposit_spatial_jit(mesh, out_shape, pixfrac, pscale_ratio, kernel,
-                         no_wht, use_pallas=False, tile=None,
-                         interpret=False):
+                         no_wht):
     """Jitted sharded deposit for one static config.
 
     The shard_map MUST run under jit: an eager shard_map dispatches
     every primitive of the deposit graph as its own one-op sharded
-    program (~3,800 dispatches / ~2 min per call measured on the
-    1-core CPU test rig, 2026-08-19). The cache keys the jitted
+    program (~3,800 dispatches per call). The cache keys the jitted
     callable on the static config so repeat calls (the align loop,
     parity tests) reuse one executable.
     """
@@ -217,17 +202,9 @@ def _deposit_spatial_jit(mesh, out_shape, pixfrac, pscale_ratio, kernel,
 
     def shard_fn(data, wht, xo, yo):
         row0 = (jax.lax.axis_index(ax) * Hl).astype(jnp.float32)
-        if use_pallas:
-            from ..kernels.drizzle import drizzle_deposit_pallas
-
-            sci, wht_acc = drizzle_deposit_pallas(
-                data, wht, xo, yo - row0, (Hl, Wo), pixfrac=pixfrac,
-                pscale_ratio=pscale_ratio, kernel=kernel, tile=tile,
-                interpret=interpret)
-        else:
-            sci, wht_acc = drizzle_deposit(
-                data, wht, xo, yo - row0, (Hl, Wo),
-                pixfrac=pixfrac, pscale_ratio=pscale_ratio, kernel=kernel)
+        sci, wht_acc = drizzle_deposit(
+            data, wht, xo, yo - row0, (Hl, Wo),
+            pixfrac=pixfrac, pscale_ratio=pscale_ratio, kernel=kernel)
         # rows past the logical Ho live only in the LAST band's padding;
         # the unsharded deposit drops them, so must we
         keep = (row0 + jax.lax.iota(jnp.float32, Hl) < Ho)[:, None]
@@ -237,9 +214,6 @@ def _deposit_spatial_jit(mesh, out_shape, pixfrac, pscale_ratio, kernel,
         shard_fn, mesh=mesh,
         in_specs=(P(), P(), P(), P()),
         out_specs=(P(ax, None), P(ax, None)),
-        # pallas_call outputs carry no varying-manual-axes metadata;
-        # the deposit is band-exact so the looser check is safe
-        check_vma=not use_pallas,
     )
 
     @jax.jit
@@ -274,9 +248,6 @@ def drizzle_deposit_stack_spatial(
     pixfrac: float = 1.0,
     pscale_ratio=1.0,
     kernel: str = "square",
-    use_pallas: bool = False,
-    tile: tuple[int, int] | None = None,
-    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Deposit an ``(E, H, W)`` exposure stack over a 2-D ``(frames,
     rows)`` mesh: frames shard for THROUGHPUT, output rows shard for
@@ -312,10 +283,7 @@ def drizzle_deposit_stack_spatial(
             f"{len(ratios)}")
     fn = _deposit_stack_spatial_jit(
         mesh, (int(out_shape[0]), int(out_shape[1])), float(pixfrac),
-        ratios, kernel, wht is None,
-        bool(use_pallas) and kernel != "tophat",
-        None if tile is None else (int(tile[0]), int(tile[1])),
-        bool(interpret))
+        ratios, kernel, wht is None)
     return fn(jnp.asarray(data, jnp.float32),
               None if wht is None else jnp.asarray(wht, jnp.float32),
               jnp.asarray(x_out, jnp.float32),
@@ -324,14 +292,9 @@ def drizzle_deposit_stack_spatial(
 
 @functools.lru_cache(maxsize=64)
 def _deposit_stack_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
-                               no_wht, use_pallas=False, tile=None,
-                               interpret=False):
+                               no_wht):
     """Jitted 2-D-mesh stack deposit for one static config (see
-    ``_deposit_spatial_jit`` for why the shard_map must be jitted).
-
-    ``use_pallas=True`` runs each local frame slot's band deposit as
-    the Mosaic matmul kernel inside shard_map (like the 1-D band
-    deposit; ``interpret=True`` for CPU parity tests)."""
+    ``_deposit_spatial_jit`` for why the shard_map must be jitted)."""
     fax, rax = mesh.axis_names
     Nf = mesh.shape[fax]
     Ho, Wo = out_shape
@@ -343,19 +306,10 @@ def _deposit_stack_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
     El = (E + pad) // Nf
 
     def _branch(ratio):
-        if use_pallas:
-            from ..kernels.drizzle import drizzle_deposit_pallas
-
-            def f(d_, w_, x_, y_):
-                return drizzle_deposit_pallas(
-                    d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
-                    pscale_ratio=ratio, kernel=kernel, tile=tile,
-                    interpret=interpret)
-        else:
-            def f(d_, w_, x_, y_):
-                return drizzle_deposit(
-                    d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
-                    pscale_ratio=ratio, kernel=kernel)
+        def f(d_, w_, x_, y_):
+            return drizzle_deposit(
+                d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
+                pscale_ratio=ratio, kernel=kernel)
         return f
 
     def shard_fn(d, wl, xl, yl, ri):
@@ -372,7 +326,7 @@ def _deposit_stack_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
             sci = sci + s
             whtb = whtb + ww
         keep = (row0 + jax.lax.iota(jnp.float32, Hl) < Ho)[:, None]
-        # band-sized psum over the frames axis only (ICI tiles of
+        # band-sized psum over the frames axis only (tiles of
         # HW/N_rows, never the full mosaic)
         return (jax.lax.psum(sci * keep, fax),
                 jax.lax.psum(whtb * keep, fax))
@@ -381,9 +335,6 @@ def _deposit_stack_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
         shard_fn, mesh=mesh,
         in_specs=(P(fax, None, None),) * 4 + (P(fax),),
         out_specs=(P(rax, None), P(rax, None)),
-        # pallas_call outputs carry no varying-manual-axes metadata;
-        # the deposit is band-exact so the looser check is safe
-        check_vma=not use_pallas,
     )
 
     @jax.jit
@@ -415,9 +366,6 @@ def drizzle_deposit_sparse_spatial(
     pixfrac: float = 1.0,
     pscale_ratio=1.0,
     kernel: str = "square",
-    use_pallas: bool = False,
-    tile: tuple[int, int] | None = None,
-    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Band-compacted sparse deposit onto a row-sharded plane.
 
@@ -435,9 +383,6 @@ def drizzle_deposit_sparse_spatial(
 
     ``pscale_ratio`` scalar or per-frame sequence (``lax.switch``
     branches, as :func:`drizzle_deposit_stack_spatial`).
-    ``use_pallas=True`` deposits each pseudo-image with the Mosaic
-    matmul kernel inside shard_map (TPU backends; ``interpret=True``
-    for CPU parity tests); ``tophat`` falls back to XLA.
     """
     Nb, E = int(jnp.shape(data)[0]), int(jnp.shape(data)[1])
     if Nb != _n_bands(mesh):
@@ -452,9 +397,7 @@ def drizzle_deposit_sparse_spatial(
             f"{len(ratios)}")
     fn = _deposit_sparse_spatial_jit(
         mesh, (int(out_shape[0]), int(out_shape[1])), float(pixfrac),
-        ratios, kernel, bool(use_pallas) and kernel != "tophat",
-        None if tile is None else (int(tile[0]), int(tile[1])),
-        bool(interpret))
+        ratios, kernel)
     return fn(jnp.asarray(data, jnp.float32),
               jnp.asarray(wht, jnp.float32),
               jnp.asarray(x_out, jnp.float32),
@@ -462,9 +405,7 @@ def drizzle_deposit_sparse_spatial(
 
 
 @functools.lru_cache(maxsize=64)
-def _deposit_sparse_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
-                                use_pallas=False, tile=None,
-                                interpret=False):
+def _deposit_sparse_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel):
     """Jitted band-sparse deposit for one static config (see
     ``_deposit_spatial_jit`` for why the shard_map must be jitted)."""
     ax = _rows_axis(mesh)
@@ -480,19 +421,10 @@ def _deposit_sparse_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
     El = (E + pad) // Nf
 
     def _branch(ratio):
-        if use_pallas:
-            from ..kernels.drizzle import drizzle_deposit_pallas
-
-            def f(d_, w_, x_, y_):
-                return drizzle_deposit_pallas(
-                    d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
-                    pscale_ratio=ratio, kernel=kernel, tile=tile,
-                    interpret=interpret)
-        else:
-            def f(d_, w_, x_, y_):
-                return drizzle_deposit(
-                    d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
-                    pscale_ratio=ratio, kernel=kernel)
+        def f(d_, w_, x_, y_):
+            return drizzle_deposit(
+                d_, w_, x_, y_, (Hl, Wo), pixfrac=pixfrac,
+                pscale_ratio=ratio, kernel=kernel)
         return f
 
     def shard_fn(d, w, xs, ys, ri):
@@ -524,9 +456,6 @@ def _deposit_sparse_spatial_jit(mesh, out_shape, pixfrac, ratios, kernel,
         shard_fn, mesh=mesh,
         in_specs=(spec_in,) * 4 + ((P(fax),) if two_d else (P(),)),
         out_specs=(P(ax, None), P(ax, None)),
-        # pallas_call outputs carry no varying-manual-axes metadata;
-        # the deposit is band-exact so the looser check is safe
-        check_vma=not use_pallas,
     )
 
     @jax.jit
@@ -597,11 +526,7 @@ def sample_spatial(
     sinscl: float = 1.0,
     logical_rows: int | None = None,
     spline_halo: int = 32,
-    use_pallas: bool = False,
-    tile: tuple[int, int] | None = None,
-    interpret: bool = False,
-    return_escaped: bool = False,
-) -> tuple[jax.Array, ...]:
+) -> tuple[jax.Array, jax.Array]:
     """:func:`subpixal_tpu.ops.interp.sample_image` from a row-sharded
     plane — the blot gather for mosaics too large for one device.
 
@@ -618,44 +543,22 @@ def sample_spatial(
     truncation error is ``|z1|**spline_halo`` (the IIR pole is
     z1 = √3−2 ≈ −0.268: 1e-18 at the default 32) — bit-comparable to
     the unsharded prefilter, not bit-identical.
-
-    ``use_pallas=True`` runs each band's gather as the replicated
-    path's MXU blot kernel (:func:`subpixal_tpu.kernels.blot.
-    sample_cutouts_pallas`) instead of the XLA tap gathers — Mosaic
-    inside shard_map, like the band deposit. Each band is halo-extended
-    by the interpolation footprint so every query is computed WHOLE by
-    the single band owning its ``floor(y)`` row; unowned queries are
-    clamped into the band (keeps the kernel's per-cutout tiles tight
-    for straddlers) and masked, and the per-band results ``psum`` — the
-    union is exact because ownership partitions the queries. Requires
-    ``(B, h, w)`` cutout-grid coordinates (falls back to the XLA path
-    otherwise); ``tile`` as in the replicated kernel; ``interpret=True``
-    for CPU parity tests. ``return_escaped=True`` appends the
-    replicated path's per-cutout tile-escape counts (always zero on
-    the XLA path, which has no static tiles).
     """
     if interp not in INTERP_OFFSETS:
         raise ValueError(
             f"unknown interp: {interp!r} "
             f"(expected one of {sorted(INTERP_OFFSETS)})")
-    # the kernel path needs per-cutout (B, h, w) grids and >=2-tap
-    # footprints (nearest is a single clamp+index — XLA already optimal)
-    pallas_ok = bool(use_pallas) and jnp.ndim(x) == 3 and interp != "nearest"
     Hp = int(plane.shape[0])
     fn = _sample_spatial_jit(
         mesh, Hp, interp, float(fill), float(sinscl),
         int(logical_rows) if logical_rows is not None else Hp,
-        int(spline_halo), pallas_ok,
-        None if tile is None else (int(tile[0]), int(tile[1])),
-        bool(interpret), bool(return_escaped))
+        int(spline_halo))
     return fn(plane, jnp.asarray(x, jnp.float32),
               jnp.asarray(y, jnp.float32))
 
 
 @functools.lru_cache(maxsize=64)
-def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo,
-                        use_pallas=False, tile=None, interpret=False,
-                        return_escaped=False):
+def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo):
     """Jitted sharded gather for one static config (see
     ``_deposit_spatial_jit`` for why the shard_map must be jitted)."""
     ax = _rows_axis(mesh)
@@ -663,11 +566,6 @@ def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo,
     pad = Hp - Hg
     offs = INTERP_OFFSETS[interp]
     lo, hi = offs[0], offs[-1]
-    # kernel-path band extension: every query owned by this band
-    # (floor(y) in the band) must find its WHOLE tap footprint — and
-    # the clamped images of unowned queries theirs — inside the
-    # extended band; hi-lo+1 covers both with a row to spare
-    halo_i = hi - lo + 1
     if interp == "spline3":
         # mirror-remap validity: every extended-band slot's reflection
         # must land inside the device's own extended range (see
@@ -679,14 +577,6 @@ def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo,
                 f"({Hl} - {pad}) and band_rows >= 2*pad + 1; got "
                 f"spline_halo={spline_halo} — use more rows per band "
                 "or fewer devices")
-        if use_pallas and spline_halo < halo_i:
-            raise ValueError(
-                f"use_pallas spline3 needs spline_halo >= {halo_i}")
-    if use_pallas and Hl < halo_i:
-        raise ValueError(
-            f"use_pallas sample needs band_rows >= {halo_i} (the "
-            f"interp footprint halo); got {Hl} — use more rows per "
-            "band or fewer devices")
 
     def _spline_ext(band, row0, halo):
         """Mirror-remapped ``spline_halo``-extended band, axis-0
@@ -716,36 +606,10 @@ def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo,
                                         interp, sinscl)
         return jax.lax.psum(part, ax)
 
-    def shard_fn_pallas(band, xs, ys):
-        """One band's share via the MXU blot kernel: halo-extend,
-        clamp-and-mask by ownership, psum (values, owned-and-valid)."""
-        from ..kernels.blot import sample_cutouts_pallas
-
-        row0 = jax.lax.axis_index(ax) * Hl
-        if interp == "spline3":
-            ext = _spline_ext(band, row0, spline_halo)
-            ext = _bspline3_prefilter_axis(
-                ext[spline_halo - halo_i:spline_halo + Hl + halo_i], 1)
-        else:
-            ext = halo_exchange(band, halo_i, ax, edge="zero")
-        # ownership: floor(y) in this band's rows — identically
-        # y in [row0, row0+Hl), so the float compare needs no floor
-        own = ((ys >= row0) & (ys < row0 + Hl)).astype(jnp.float32)
-        y_loc = jnp.clip(ys - row0.astype(jnp.float32) + halo_i,
-                         halo_i - 0.5, halo_i + Hl)
-        vals_b, valid_b = sample_cutouts_pallas(
-            ext, xs, y_loc, interp=interp,
-            tile=tile or (128, 128), fill=0.0, interpret=interpret,
-            prefiltered=True)
-        okf = valid_b.astype(jnp.float32) * own
-        return jax.lax.psum((vals_b * okf, okf), ax)
-
     sharded = jax.shard_map(
-        shard_fn_pallas if use_pallas else shard_fn, mesh=mesh,
+        shard_fn, mesh=mesh,
         in_specs=(P(ax, None), P(), P()),
-        out_specs=(P(), P()) if use_pallas else P(),
-        # pallas_call outputs carry no varying-manual-axes metadata
-        check_vma=not use_pallas,
+        out_specs=P(),
     )
 
     @jax.jit
@@ -760,23 +624,7 @@ def _sample_spatial_jit(mesh, Hp, interp, fill, sinscl, Hg, spline_halo,
             yi0 = jnp.floor(yq).astype(jnp.int32)
             valid = ((xi0 + lo >= 0) & (xi0 + hi < W)
                      & (yi0 + lo >= 0) & (yi0 + hi < Hg))
-        if use_pallas:
-            vals, okf = sharded(plane, xq, yq)
-            okb = okf > 0.5
-            ok = valid & okb
-            out = jnp.where(ok, vals, fill)
-            if return_escaped:
-                # pixels the XLA path would sample (footprint inside
-                # the global plane) that the owning band's static tile
-                # missed — same semantics as the replicated kernel
-                esc = jnp.sum((valid & ~okb).astype(jnp.int32),
-                              axis=(1, 2))
-                return out, ok, esc
-            return out, ok
         vals = sharded(plane, xq, yq)
-        out = jnp.where(valid, vals, fill)
-        if return_escaped:  # no static tiles on the XLA path
-            return out, valid, jnp.zeros(xq.shape[0], jnp.int32)
-        return out, valid
+        return jnp.where(valid, vals, fill), valid
 
     return run

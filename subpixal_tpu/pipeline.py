@@ -142,7 +142,7 @@ def align_fits(
     """End-to-end file-based alignment (the reference's usage pattern).
 
     Reads the exposures (multi-SCI files expand to one exposure per
-    chip — see :func:`load_exposures`), runs the TPU align loop, and (by
+    chip — see :func:`load_exposures`), runs the device align loop, and (by
     default) writes the corrected WCS keywords back into each chip's own
     SCI header with a HISTORY record (reference ``history`` semantics;
     SURVEY §3.1 "apply WCS correction to exposure SCI header(s)"). A
@@ -196,7 +196,7 @@ class AlignState:
     """Explicit serializable alignment state (SURVEY §5 checkpoint/resume).
 
     The reference has no checkpointing beyond FITS headers; this gives the
-    TPU build an explicit artifact: per-image affines, convergence info
+    device build an explicit artifact: per-image affines, convergence info
     and the per-iteration fit history, restorable into new runs.
     """
 

@@ -1,7 +1,7 @@
 """Self-contained TAN(+SIP) WCS — host + device implementations.
 
 The reference delegates all WCS work to ``astropy.wcs`` / ``stwcs`` (HST
-SIP distortion); this environment has no astropy, and a TPU-native build
+SIP distortion); this environment has no astropy, and a device build
 wants the per-cutout coordinate math to be pure-array anyway (SURVEY.md §7
 "WCS distortion on device"). This module therefore implements the FITS
 standard gnomonic (TAN) projection with optional SIP polynomial distortion
@@ -17,7 +17,7 @@ from scratch:
   fixed-trip Newton refinement otherwise (jit-safe, no data-dependent
   control flow);
 * :func:`apply_tangent_affine` applies an alignment correction measured in
-  a reference image's pixel frame to an exposure's WCS — the TPU-native
+  a reference image's pixel frame to an exposure's WCS — the device
   analogue of the reference's header-update step
   (``subpixal/align.py`` WCS-update helper → drizzlepac ``updatehdr``).
 

@@ -454,7 +454,7 @@ def test_plural_catalogs_union():
 
 
 def test_cutout_pixmaps_device_matches_host():
-    """cutout_pixmaps='device' (f32 on-device geometry, the TPU default)
+    """cutout_pixmaps='device' (f32 on-device geometry, the GPU default)
     must agree with the exact float64 host path to well under a mpix on
     a 256² scene (round-3 setup-time work, VERDICT r2 weak #2)."""
     err = np.array([(0.0, 0.0), (1.2, -0.7), (-0.9, 0.5)])
@@ -503,7 +503,7 @@ def test_cutout_pixmaps_device_with_sip():
 
 
 def test_device_catalog_align_matches_host():
-    """`device_catalog='device'` (TPU source finding, no-fetch setup)
+    """`device_catalog='device'` (device source finding, no-fetch setup)
     must reproduce the host-finder align result (catalogs/device.py)."""
     from subpixal_tpu.testing import pairwise_shift_errors, simulate_stack
 

@@ -3,7 +3,7 @@
 On the CPU test rig the disk path is disabled (XLA:CPU AOT loads are
 unreliable — aot._use_serialized), so these pin the key/memoization
 semantics every backend shares plus the gating itself; the disk
-round-trip is exercised on the real TPU by bench.py's fresh-process
+round-trip is exercised on the card by bench.py's fresh-process
 section and every align run.
 """
 

@@ -195,8 +195,8 @@ def test_normalize_search_box_forms():
 
 
 class TestMatmulDFT:
-    """The MXU matmul-DFT transforms must agree with jnp.fft (the CPU /
-    large-array path) to float32 round-off."""
+    """The opt-in matmul-DFT transforms must agree with jnp.fft (the
+    default path) to float32 round-off."""
 
     def test_rfft2_matmul_matches_fft(self):
         from subpixal_tpu.ops.correlate import _rfft2_matmul

@@ -203,7 +203,7 @@ def test_align_counts_units_mixed_exptime():
         exps.append(Exposure(rate * t, wcs, exptime=t, name=f"c{e}",
                              data_units="counts"))
     res = align_images(exposures=exps, fitgeom="shift", max_iterations=6,
-                       usfac=8, min_sources=3, use_pallas=False)
+                       usfac=8, min_sources=3)
     # planted offsets are relative; compare pairwise differences of the
     # recovered shifts against the planted ones
     sh = res.shifts
@@ -243,17 +243,15 @@ def test_execute_stack_matches_per_frame(monkeypatch):
     exps, _ = simulate_stack(n_exp=3, shape=(96, 96), n_stars=6, seed=3)
 
     # per-frame reference flow (host pixmaps on CPU)
-    d1 = Drizzle([e.copy() for e in exps], use_pallas=False)
+    d1 = Drizzle([e.copy() for e in exps])
     d1.execute()
     ref_sci = np.asarray(d1.output_sci)
 
-    # stacked path: force device pixmaps on CPU + interpret-mode Pallas
+    # stacked path: force device pixmaps on CPU
     monkeypatch.setattr(B, "device_pixmap_min_pixels", lambda: 1)
-    d2 = Drizzle([e.copy() for e in exps], use_pallas=False)
+    d2 = Drizzle([e.copy() for e in exps])
     d2._ensure_output_grid()
-    d2._warm_combine()
-    tile = d2._shared_tile()
-    out = d2._execute_stack(tile, _interpret=True)
+    out = d2._execute_stack()
     assert out is not None, "stacked path did not engage"
     sci_s, wht_s, sci, wht = out
     assert sci_s.shape[0] == 3

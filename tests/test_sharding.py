@@ -113,7 +113,7 @@ def test_sharded_fit_clips_outliers_globally():
     assert int(fit.nmatches) >= B - 10
 
 def test_sharded_displacement_packed_path(monkeypatch):
-    """The TPU default engages the PACKED displacement pipeline INSIDE
+    """The opt-in PACKED displacement pipeline runs INSIDE
     shard_map (mesh-mode align measurement) — force it on CPU and pin
     parity with the batch-major sharded path (layout-only difference:
     f32 summation order)."""

@@ -85,7 +85,7 @@ def test_live_blocks_padding_and_bucketing():
     cd, cw, cx, cy = _compact_blocks(
         jnp.asarray(data), jnp.asarray(wht), jnp.asarray(px),
         jnp.asarray(py), jnp.asarray(idx), jnp.asarray(valid))
-    from subpixal_tpu.kernels._common import DEPOSIT_BLOCK
+    from subpixal_tpu.ops.blocks import DEPOSIT_BLOCK
     bh, bw = DEPOSIT_BLOCK
     cw = np.asarray(cw).reshape(E, L, bh, bw)
     for e in range(E):
@@ -121,9 +121,9 @@ def _warning_scene(shape=(512, 1024), E=2, ns=8, seed=13):
 
 
 def test_sparse_corr_warning_fires_on_large_corrections():
-    """Corrections beyond the live-set margin cannot trip the kernels'
-    escape counters (tile origins follow the corrected coordinates), so
-    align polices the step's reported correction magnitude: it first
+    """Corrections beyond the live-set margin would let blot windows
+    sample un-deposited reference pixels, so align polices the step's
+    reported correction magnitude: it first
     SELF-HEALS the live set (twice), then warns when corrections keep
     outgrowing even the healed margins.
 
@@ -172,7 +172,7 @@ def test_sparse_corr_warning_fires_on_large_corrections():
                 max_iterations=2, usfac=2,
                 fit_type="gaussian", cutout_shape=(64, 64),
                 min_sources=3, sparse_deposit=True,
-                use_pallas=False, device_loop=False)
+                device_loop=False)
     finally:
         A._build_step_cached = orig
         A._live_block_indices = orig_lbi
@@ -215,7 +215,7 @@ def test_sparse_self_heal_converges_with_large_initial_shift():
               fit_type="gaussian", cutout_shape=(96, 96), min_sources=3,
               combine_seg_mask=False,  # the 30-px offset star must not
               # be zeroed by the (setup-position) segmentation mask
-              peak_search_box=None, use_pallas=False)
+              peak_search_box=None)
     res_sparse = A.align_images([cat], Drizzle(scene()),
                                 sparse_deposit=True, **kw)
     res_dense = A.align_images([cat], Drizzle(scene()),
@@ -253,7 +253,7 @@ def test_max_corr_reported_in_step_info():
         A.align_images(exposures=_warning_scene(seed=3), fitgeom="shift",
                        max_iterations=2, usfac=2, fit_type="gaussian",
                        cutout_shape=(64, 64), min_sources=3,
-                       use_pallas=False, device_loop=False)
+                       device_loop=False)
     finally:
         A._build_step_cached = orig
     assert seen and all(np.isfinite(v) for v in seen)
@@ -297,8 +297,7 @@ def test_mesh_sparse_self_heal_recovers():
 
     kw = dict(fitgeom="shift", max_iterations=8, usfac=2,
               fit_type="gaussian", cutout_shape=(96, 96), min_sources=3,
-              combine_seg_mask=False, peak_search_box=None,
-              use_pallas=False)
+              combine_seg_mask=False, peak_search_box=None)
     res_mesh = A.align_images([cat], Drizzle(scene()), mesh=make_mesh(4),
                               sparse_deposit=True, **kw)
     res_dense = A.align_images([cat], Drizzle(scene()),

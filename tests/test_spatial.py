@@ -121,28 +121,6 @@ class TestDepositSpatial:
                                    np.asarray(w_ref), atol=1e-5,
                                    rtol=1e-4)
 
-    def test_pallas_band_deposit_matches_xla(self, mesh):
-        """use_pallas=True runs the Mosaic matmul deposit INSIDE
-        shard_map (the TPU spatial default since round 4); interpreter
-        mode pins parity with the XLA band deposit on CPU."""
-        rng = np.random.default_rng(8)
-        H, W = 100, 64
-        img = rng.random((48, 40)).astype(np.float32)
-        wht = rng.random((48, 40)).astype(np.float32)
-        gx, gy = _pixmap(48, 40)
-        s_ref, w_ref = drizzle_deposit_spatial(mesh, img, wht, gx, gy,
-                                               (H, W), pixfrac=0.8)
-        s_p, w_p = drizzle_deposit_spatial(mesh, img, wht, gx, gy,
-                                           (H, W), pixfrac=0.8,
-                                           use_pallas=True,
-                                           interpret=True)
-        np.testing.assert_allclose(gather_rows(s_p, H),
-                                   gather_rows(s_ref, H),
-                                   atol=1e-5, rtol=1e-4)
-        np.testing.assert_allclose(gather_rows(w_p, H),
-                                   gather_rows(w_ref, H),
-                                   atol=1e-5, rtol=1e-4)
-
     def test_multi_frame_combine_stays_sharded(self, mesh):
         """Accumulate several frames into the sharded accumulators and
         combine — the full mosaic never exists on one device."""
@@ -212,75 +190,6 @@ class TestSampleSpatial:
         np.testing.assert_allclose(np.asarray(v_sh), np.asarray(v_ref),
                                    atol=2e-5)
 
-    @pytest.mark.parametrize(
-        "interp", ["linear", "poly3", "poly5", "sinc", "spline3"])
-    def test_pallas_matches_xla(self, mesh, interp):
-        """use_pallas=True runs the replicated MXU blot kernel per band
-        (Mosaic-inside-shard_map) — parity with the XLA tap-gather path
-        on straddling + edge-crossing cutout grids, zero tile escapes
-        at an ample tile."""
-        rng = np.random.default_rng(11)
-        H, W = 100, 64
-        plane = rng.random((H, W)).astype(np.float32)
-        B, h, w = 8, 8, 8
-        gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
-        # origins: interior, band-straddling (multiples of 13-row
-        # bands), and off-image (top/left/bottom/right edges)
-        oy0 = np.array([20.0, 12.2, 25.7, 51.9, -3.5, 40.0, 95.1, 60.0])
-        ox0 = np.array([10.0, 30.0, 3.3, 40.0, 20.0, -2.7, 30.0, 59.2])
-        xs = (gx[None] + ox0[:, None, None] + 0.37).astype(np.float32)
-        ys = (gy[None] + oy0[:, None, None] + 0.61).astype(np.float32)
-        sp = shard_rows(mesh, jnp.asarray(plane))
-        kw = dict(interp=interp, fill=-7.0, logical_rows=H)
-        if interp == "spline3":
-            kw["spline_halo"] = 9  # band 13, pad 4 (see guard test)
-        v_ref, ok_ref = sample_spatial(mesh, sp, xs, ys, **kw)
-        v_pl, ok_pl, esc = sample_spatial(
-            mesh, sp, xs, ys, use_pallas=True, tile=(32, 32),
-            interpret=True, return_escaped=True, **kw)
-        np.testing.assert_array_equal(np.asarray(esc),
-                                      np.zeros(B, np.int32))
-        np.testing.assert_array_equal(np.asarray(ok_pl),
-                                      np.asarray(ok_ref))
-        # spline3: per-band prefilter truncation on top of matmul-vs-tap
-        # accumulation-order noise
-        atol = 2e-5 if interp == "spline3" else 1e-5
-        np.testing.assert_allclose(np.asarray(v_pl), np.asarray(v_ref),
-                                   atol=atol)
-
-    def test_pallas_tile_escape_counts(self, mesh):
-        """A cutout grid taller than the static tile reports escaped
-        pixels (globally-valid pixels the tile missed) instead of
-        silently filling them."""
-        rng = np.random.default_rng(12)
-        H, W = 100, 64
-        plane = rng.random((H, W)).astype(np.float32)
-        h, w = 24, 8  # 24 rows + poly5 footprint > Th=16 at tile=(8,8)
-        gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
-        xs = (gx[None] + 20.37).astype(np.float32)
-        ys = (gy[None] + 30.61).astype(np.float32)
-        sp = shard_rows(mesh, jnp.asarray(plane))
-        v_pl, ok_pl, esc = sample_spatial(
-            mesh, sp, xs, ys, interp="poly5", fill=-7.0,
-            logical_rows=H, use_pallas=True, tile=(8, 8),
-            interpret=True, return_escaped=True)
-        assert int(esc[0]) > 0
-        # escaped pixels are filled and invalid; the survivors match
-        v_ref, ok_ref = sample_spatial(mesh, sp, xs, ys, interp="poly5",
-                                       fill=-7.0, logical_rows=H)
-        ok_pl = np.asarray(ok_pl)
-        assert int(esc[0]) == int((np.asarray(ok_ref) & ~ok_pl).sum())
-        np.testing.assert_allclose(np.asarray(v_pl)[ok_pl],
-                                   np.asarray(v_ref)[ok_pl], atol=1e-5)
-
-    def test_pallas_band_rows_guard(self, mesh):
-        sp = shard_rows(mesh, jnp.zeros((16, 16)))  # band 2 rows
-        with pytest.raises(ValueError, match="band_rows >="):
-            sample_spatial(mesh, sp, jnp.zeros((1, 4, 4)),
-                           jnp.zeros((1, 4, 4)), interp="sinc",
-                           logical_rows=16, use_pallas=True,
-                           interpret=True)
-
     def test_spline3_guard(self, mesh):
         sp = shard_rows(mesh, jnp.zeros((100, 16)))  # band 13, pad 4
         with pytest.raises(ValueError, match="spline3 needs"):
@@ -324,31 +233,6 @@ class TestMesh2D:
         np.testing.assert_allclose(gather_rows(s_sh, H), s_ref,
                                    atol=1e-5, rtol=1e-4)
         np.testing.assert_allclose(gather_rows(w_sh, H), w_ref,
-                                   atol=1e-5, rtol=1e-4)
-
-    def test_stack_deposit_pallas_matches_xla(self, mesh2):
-        """use_pallas=True runs each local frame slot's band deposit as
-        the Mosaic matmul kernel inside the 2-D shard_map (round 4 —
-        previously only the 1-D band deposit had the Pallas path);
-        interpreter mode pins CPU parity with the XLA stack deposit."""
-        rng = np.random.default_rng(10)
-        H, W = 100, 48
-        E = 3
-        data = rng.random((E, 40, 36)).astype(np.float32)
-        wht = rng.random((E, 40, 36)).astype(np.float32)
-        gx = np.stack([_pixmap(40, 36, tx=1.0 + 2 * k)[0]
-                       for k in range(E)])
-        gy = np.stack([_pixmap(40, 36, ty=2.0 - k)[1] for k in range(E)])
-        s_x, w_x = drizzle_deposit_stack_spatial(
-            mesh2, data, wht, gx, gy, (H, W), pixfrac=0.9)
-        s_p, w_p = drizzle_deposit_stack_spatial(
-            mesh2, data, wht, gx, gy, (H, W), pixfrac=0.9,
-            use_pallas=True, interpret=True)
-        np.testing.assert_allclose(gather_rows(s_p, H),
-                                   gather_rows(s_x, H),
-                                   atol=1e-5, rtol=1e-4)
-        np.testing.assert_allclose(gather_rows(w_p, H),
-                                   gather_rows(w_x, H),
                                    atol=1e-5, rtol=1e-4)
 
     def test_stack_deposit_mixed_pscale_ratios(self, mesh2):
@@ -415,7 +299,7 @@ class TestMesh2D:
         from subpixal_tpu.resample import Drizzle
 
         exps = TestSpatialDrizzle._scene()
-        ref = Drizzle([e.copy() for e in exps], use_pallas=False)
+        ref = Drizzle([e.copy() for e in exps])
         ref.execute()
         d = Drizzle(exps, spatial_mesh=mesh2)
         d.execute()
@@ -457,7 +341,7 @@ class TestSpatialDrizzle:
         from subpixal_tpu.resample import Drizzle
 
         exps = self._scene()
-        ref = Drizzle([e.copy() for e in exps], use_pallas=False)
+        ref = Drizzle([e.copy() for e in exps])
         ref.execute()
         d = Drizzle(exps, spatial_mesh=mesh)
         d.execute()
@@ -493,7 +377,7 @@ class TestSpatialDrizzle:
         exps = self._scene(n=4, seed=31)
         # plant a cosmic ray in one exposure
         exps[1].data[20, 18] += 50.0
-        ref = Drizzle([e.copy() for e in exps], use_pallas=False)
+        ref = Drizzle([e.copy() for e in exps])
         ref.execute()
         masks_ref = ref.reject_cr()
         d = Drizzle([e.copy() for e in exps], spatial_mesh=mesh)
@@ -516,7 +400,7 @@ class TestSpatialDrizzle:
         exps = self._scene(seed=41)
         for e in exps:
             e.data = e.data + 0.25  # uniform sky pedestal
-        ref = Drizzle([e.copy() for e in exps], use_pallas=False)
+        ref = Drizzle([e.copy() for e in exps])
         ref.execute()
         ref.match_sky()
         d = Drizzle([e.copy() for e in exps], spatial_mesh=mesh)
@@ -597,17 +481,27 @@ class TestSpatialAlign:
                                    np.asarray(ref.shifts), atol=2e-3)
 
     def test_forces_incompatible_knobs_off(self, mesh):
+        """Spatial align has no kernel knob left to force off: the
+        retired ``use_pallas`` option is rejected outright, and the
+        default configuration runs without a warning."""
+        import warnings
+
         from subpixal_tpu.align import align_images
         from subpixal_tpu.resample import Drizzle
         from subpixal_tpu.testing import simulate_stack
 
         exps, _ = simulate_stack(n_exp=3, shape=(96, 96), n_stars=6,
                                  seed=21)
-        d = Drizzle(exps, spatial_mesh=mesh)
-        with pytest.warns(UserWarning, match="forces"):
-            align_images(resample=d, fitgeom="shift", max_iterations=1,
-                         usfac=4, cutout_shape=(16, 16), min_sources=3,
-                         use_pallas=True)
+        kw = dict(fitgeom="shift", max_iterations=1, usfac=4,
+                  cutout_shape=(16, 16), min_sources=3)
+        with pytest.raises(TypeError, match="use_pallas"):
+            align_images(resample=Drizzle(exps, spatial_mesh=mesh),
+                         use_pallas=True, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)
+            res = align_images(resample=Drizzle(exps, spatial_mesh=mesh),
+                               **kw)
+        assert res.n_iterations == 1
 
     def test_device_loop_matches_host_loop(self, mesh):
         """The on-device while_loop fixed point (one host sync) works

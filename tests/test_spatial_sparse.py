@@ -135,26 +135,6 @@ class TestBandLiveSet:
         np.testing.assert_allclose(w_g[need], w_ref[need],
                                    atol=1e-5, rtol=1e-4)
 
-    def test_pallas_interpret_matches_xla(self, mesh):
-        data, wht, px, py, cut_px, cut_py = _scene(E=1, H=128, W=128)
-        H, W = data.shape[1:]
-        _, (idx_b, valid_b) = _live_sets(mesh, (H, W), px, py,
-                                         cut_px, cut_py)
-        bd, bw_, bx, by = _compact_blocks_bands(
-            jnp.asarray(data), jnp.asarray(wht), jnp.asarray(px),
-            jnp.asarray(py), jnp.asarray(idx_b), jnp.asarray(valid_b))
-        s_x, w_x = drizzle_deposit_sparse_spatial(
-            mesh, bd, bw_, bx, by, (H, W))
-        s_p, w_p = drizzle_deposit_sparse_spatial(
-            mesh, bd, bw_, bx, by, (H, W), use_pallas=True,
-            interpret=True)
-        np.testing.assert_allclose(gather_rows(s_p, H),
-                                   gather_rows(s_x, H),
-                                   atol=1e-5, rtol=1e-4)
-        np.testing.assert_allclose(gather_rows(w_p, H),
-                                   gather_rows(w_x, H),
-                                   atol=1e-5, rtol=1e-4)
-
     def test_2d_mesh_psums_frames(self):
         mesh2 = make_mesh2d(2, 4)
         data, wht, px, py, cut_px, cut_py = _scene(E=3)  # pads to 4
@@ -269,8 +249,7 @@ def test_spatial_sparse_self_heal_recovers(mesh):
 
     kw = dict(fitgeom="shift", max_iterations=8, usfac=2,
               fit_type="gaussian", cutout_shape=(96, 96), min_sources=3,
-              combine_seg_mask=False, peak_search_box=None,
-              use_pallas=False)
+              combine_seg_mask=False, peak_search_box=None)
     res_sp = A.align_images(
         [cat], Drizzle(scene(), spatial_mesh=mesh),
         sparse_deposit=True, **kw)
